@@ -1,9 +1,11 @@
-"""fastk_tpu — a TPU-native k-mer counting framework with FastK's capabilities.
+"""fastk_tpu — an accelerator k-mer counting framework with FastK's
+capabilities.
 
 A brand-new implementation (not a port) of the capabilities of
 thegenemyers/FASTK: canonical k-mer frequency histograms (``.hist``), sorted
 k-mer/count tables (``.ktab``) and per-read compressed count profiles
-(``.prof``/``.pidx``), designed TPU-first on JAX/XLA/Pallas/pjit.
+(``.prof``/``.pidx``), with the counting on the device through JAX/XLA.
+The compile cache rule lives in :mod:`fastk_tpu.jaxenv`.
 
 Public API mirrors the reference library surface (reference: libfastk.h:30-119):
 
@@ -12,16 +14,6 @@ Public API mirrors the reference library surface (reference: libfastk.h:30-119):
 - :class:`fastk_tpu.formats.prof.ProfileIndex`
 - :func:`fastk_tpu.pipeline.count.count_fasta` — the end-to-end counting pipeline.
 """
-
-import os as _os
-
-# Large-shape sorts take minutes to compile on TPU; persist compiled
-# executables across runs so only the first invocation of each batch shape
-# pays (users can override or disable via the standard JAX env vars).
-_os.environ.setdefault(
-    "JAX_COMPILATION_CACHE_DIR",
-    _os.path.join(_os.path.expanduser("~"), ".cache", "fastk_tpu", "xla"))
-_os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "2")
 
 from fastk_tpu._version import __version__
 

@@ -144,7 +144,7 @@ class Histogram:
 
         ``bins`` has 32768 entries; bins[c] = number of unique k-mers whose
         clipped count is c (bins[0] is ignored). This is the device-histogram
-        entry point: the TPU pipeline bins counts on device and only the
+        entry point: the device pipeline bins counts on device and only the
         32768-bin array crosses to host."""
         bins = np.asarray(bins, dtype=np.int64)
         assert bins.shape == (HIST_HIGH + 1,)

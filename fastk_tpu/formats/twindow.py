@@ -3,7 +3,7 @@
 N KmerStreams advance in lockstep through keyspace windows aligned at pivot
 keys: every window materializes at most nstreams * window entries, however
 large the tables (human-scale tables are 40-50 GB loaded whole — reference
-README.md). This is the TPU framework's analog of the reference's
+README.md). This is this framework's analog of the reference's
 GoTo_Kmer_Entry-aligned N-way merges (Fastmerge.c:168-450 table_thread;
 Logex.c:1403-1478 streaming evaluation), windowed-vectorized instead of
 entry-at-a-time — per window each stream does one binary search and one

@@ -1,6 +1,6 @@
 """Native (C) host codecs, loaded via ctypes with transparent fallback.
 
-The compute path is JAX/XLA on TPU; these are the host-side per-byte loops
+The compute path is JAX/XLA on the device; these are the host-side per-byte loops
 around it (sequence parsing, 2-bit packing, profile decode — the parts the
 reference implements in io.c/split.c). Compiled on first use with the system
 C compiler into ``_build/fastk_native.so``; if no compiler is available the

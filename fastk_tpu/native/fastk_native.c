@@ -1,8 +1,8 @@
-/* fastk_native — host-side hot loops for the TPU k-mer framework.
+/* fastk_native — host-side hot loops for the k-mer framework.
  *
  * Native equivalents of the reference's C ingest path (io.c:574-759 FASTA/
  * FASTQ scanners; homopolymer compression io.c:284-294; 2-bit packing
- * split.c:864-989), exposed through ctypes. The TPU framework keeps its
+ * split.c:864-989), exposed through ctypes. The framework keeps its
  * Python implementations as fallbacks; this library exists because sequence
  * parsing is the one per-byte loop that must run at memory speed on the
  * host before data ever reaches the chip.
@@ -1204,7 +1204,7 @@ long fk_logex_windows(int kb, int kmer, int ns,
 
 /* ------------------------------------------------------------------ */
 /* BAM / SAM record scanners (the reference scans both in threaded C,
- * io.c:1317-1654; these are the TPU build's host-side equivalents,
+ * io.c:1317-1654; these are this build's host-side equivalents,
  * feeding the same worker pool as fk_scan_seq).                       */
 
 /* BAM 4-bit SEQ nibbles -> IUPAC letters (SAM spec; reference io.c:1313) */

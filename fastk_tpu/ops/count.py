@@ -1,24 +1,16 @@
 """Device-side k-mer counting: sort, segment reduction, histogram, inversion.
 
 The reference's two-stage weighted sort (super-mer dedup then weighted k-mer
-sort, count.c:1-18) exists to shrink CPU sort volume; on TPU the sort is a
-device-wide radix-style sort over fixed-shape key-word arrays, so we sort
-k-mer instances directly and fold counting into a segmented reduction.
+sort, count.c:1-18) exists to shrink CPU sort volume; here the sort is a
+device-wide sort over fixed-shape key-word arrays, so we sort k-mer
+instances directly and fold counting into a segmented reduction.
 
-Primitive costs measured on v5e (64M records) dictate every choice here:
+The path is built from sorts, cumulative sums, rolls and searchsorted; it
+uses no gather by permutation, and one scatter: the inverse permutation.
+These choices predate any measurement on the H100 (histogram and segment
+broadcast each have a scatter or gather alternative still to be measured
+there):
 
-  variadic lax.sort        ~160ms +60-90ms per extra operand
-  1-bit-key compaction     ~125ms (stable sort by !starts)
-  cumsum / rolls           ~free
-  searchsorted (32k keys)  ~free
-  scatter-add -> 32k bins  ~570ms   -> histogram is sort+searchsorted instead
-  gather  by permutation   ~940ms   -> segment broadcasts use fill_forward
-  scatter by permutation   >100s    -> NEVER; inversion is a sort by position
-  fill_forward (log rolls) ~50ms    -> the gather-free segment broadcast
-  one-hot int8 MXU hist    ~305ms   -> loses to the sort: one-hot
-                                       construction traffic dominates
-
-Consequences:
 - invalid positions are encoded IN the key as all-ones words (a canonical
   k-mer can never be all-ones: the RC of T^k is A^k which is smaller), so the
   sort carries no separate invalid operand;
@@ -27,7 +19,9 @@ Consequences:
 - the 32768-bin count histogram is a 1-key sort of clipped per-segment counts
   plus one searchsorted over the bin boundaries — no scatter;
 - the reference's profile inversion by a pair of LSD sorts on ordinal indices
-  (count.c:619-1004) is a single value-carrying sort by position.
+  (count.c:619-1004) is a single scatter by position.
+
+All results are integers: no floating-point arithmetic is on this path.
 """
 
 from __future__ import annotations
@@ -36,7 +30,7 @@ import functools
 import jax
 import jax.numpy as jnp
 
-import fastk_tpu.jaxenv  # noqa: F401  (honor JAX_PLATFORMS over plugins)
+import fastk_tpu.jaxenv  # noqa: F401  (compile cache rule)
 
 from fastk_tpu.ops.kmers import canonical_kmers
 
@@ -72,11 +66,10 @@ def is_invalid_key(words) -> jnp.ndarray:
 def narrow_words(words, k: int):
     """Halve the LAST sort operand when k leaves it <= 8 bases: the last key
     word holds 2L high-aligned bits (L = k mod 16), so for L <= 8 it carries
-    only its top 16 bits — shift down into a uint16 operand. Sort cost is
-    per operand BYTE (~20ms/byte at 64M on v5e), so e.g. k=40 sorts
-    (u32,u32,u16) instead of (u32,u32,u32), ~9% cheaper. Order and all-ones
-    invalid folding are preserved (0xFFFFFFFF >> 16 with all-ones high half
-    == 0xFFFF)."""
+    only its top 16 bits — shift down into a uint16 operand, so e.g. k=40
+    sorts (u32,u32,u16) instead of (u32,u32,u32): fewer bytes per record.
+    Order and all-ones invalid folding are preserved (0xFFFFFFFF >> 16 with
+    all-ones high half == 0xFFFF)."""
     W = len(words)
     L = k - 16 * (W - 1)
     if W >= 2 and L <= 8 and words[-1].dtype == jnp.uint32:
@@ -191,8 +184,8 @@ def fill_forward(markers: jnp.ndarray, values: jnp.ndarray, size: int
     """out[i] = values[j] at the largest j <= i with markers[j] (-1 if none).
 
     Log-step pointer jumping: ~log2(size) shifted selects, all elementwise —
-    replaces both a per-element gather (~1s at 64M on v5e) and any segmented
-    scan. values must be >= 0 (int32)."""
+    in place of a per-element gather or a segmented scan. values must be
+    >= 0 (int32)."""
     v = jnp.where(markers, values.astype(jnp.int32) + 1, 0)
     idx = jnp.arange(size, dtype=jnp.int32)
     nsteps = max(1, (size - 1).bit_length())
@@ -210,10 +203,9 @@ def next_start_after(starts: jnp.ndarray, size: int) -> jnp.ndarray:
     none) — the run-length primitive (seg_len = nxt_after - idx at starts).
 
     A reverse cummin of where(starts, idx, size), shifted left by one. Runs
-    row-decomposed when the shape allows: bitonic-style scan cost tracks
-    log2(axis length), so (R, C) row scans plus an O(R) cross-row suffix-min
-    fix are ~35% cheaper than the flat scan at 2^26 (benchmarks/_r3tail2.py,
-    exact-equality checked there and in the golden suites)."""
+    row-decomposed when the shape allows: (R, C) row scans plus an O(R)
+    cross-row suffix-min fix (exact-equality checked in the golden
+    suites)."""
     idx = jnp.arange(size, dtype=jnp.int32)
     nxt = jnp.where(starts, idx, size)
     R = 64
@@ -233,11 +225,11 @@ def bincount_by_sort(values: jnp.ndarray, nbins: int) -> jnp.ndarray:
 
     values must already be clipped to [0, nbins); anything to exclude should
     be set >= nbins by the caller (but below 2^16 - sorting runs in uint16
-    when nbins allows, which is cheaper on the VPU)."""
+    when nbins allows, which halves the sorted bytes)."""
     if nbins + 1 < (1 << 16):
         values = values.astype(jnp.uint16)
     # is_stable=False matters: lax.sort defaults to stable, which costs a
-    # hidden iota tiebreak operand (~= one extra key, benchmarks/README)
+    # hidden iota tiebreak operand (one extra key)
     sv = jax.lax.sort((values,), num_keys=1, is_stable=False)[0]
     edges = jnp.searchsorted(sv, jnp.arange(nbins + 1, dtype=sv.dtype))
     return (edges[1:] - edges[:-1]).astype(jnp.int32)
@@ -369,7 +361,7 @@ def merge_unique_blocks(words, counts, size: int, k: int = 0,
     count (replaces profile_join_keys' table+query sort and its query
     upload entirely). Gather-free: per-segment totals broadcast to
     records by two fill-forwards over the sorted order (start-prefix and
-    end-prefix cumsums), then one value sort back to input order."""
+    end-prefix cumsums), then one scatter back to input order."""
     nw = narrow_words(words, k) if k else words
     vals_in = (counts,) + ((jnp.arange(size, dtype=jnp.uint32),)
                            if want_back else ())
@@ -499,10 +491,11 @@ def profile_join_inst(table_words, table_counts, s_words, s_pos):
 def positions_inverse(pos: jnp.ndarray, values: jnp.ndarray):
     """Return `values` reordered to position order (pos is a permutation).
 
-    The TPU-safe inverse permutation: one value-carrying 1-key sort. A
-    scatter `.at[pos].set(v)` is catastrophically slow on TPU (>100s at 64M)."""
-    out = jax.lax.sort((pos, values), num_keys=1, is_stable=False)
-    return out[1]
+    One scatter by position. XLA:GPU rewrites the equivalent value-carrying
+    sort by position into this same scatter, and its rewrite mis-types
+    uint16 values (an HLO verifier error), so the scatter is written out."""
+    return jnp.zeros(values.shape, values.dtype).at[pos].set(
+        values, unique_indices=True)
 
 
 def segmented_count(s_words, s_inv, size: int, want_elem_counts: bool = False,

@@ -10,8 +10,8 @@ split.c:1419-1490, and the multi-node Fastmerge flow, README.md:245-353):
   globally exact with no cross-chip merge, and the concatenation of per-chip
   sorted uniques is the final sorted table — no re-shard before table
   emission.
-- The bucket exchange is one jax.lax.all_to_all over ICI; the histogram is a
-  psum; profile counts return to their source chip by the inverse all_to_all.
+- The bucket exchange is one jax.lax.all_to_all; the histogram is a psum;
+  profile counts return to their source chip by the inverse all_to_all.
 - Range splitters are trained on a first-batch prefix histogram (the analog
   of the reference's core-prefix-trie trainer, split.c:491-803), so skewed
   data still balances.
@@ -30,7 +30,7 @@ from typing import Optional
 import jax
 import jax.numpy as jnp
 
-import fastk_tpu.jaxenv  # noqa: F401  (honor JAX_PLATFORMS over plugins)
+import fastk_tpu.jaxenv  # noqa: F401  (compile cache rule)
 import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
 
@@ -79,40 +79,21 @@ def prefix_histogram(codes: jnp.ndarray, k: int, size: int, bits: int = 8):
     ].add(jnp.where(invalid == 0, 1, 0))
 
 
-def _place_by_slot_merge(flat, operands, n_slots: int, size: int):
-    """Dense [n_slots] buffers from records at strictly-increasing slots
-    `flat` (dropped records hold flat == n_slots) WITHOUT a scatter.
-
-    One merge sort of records + slot dummies keyed by (slot, record-first):
-    each slot's segment is [its record (if any), its dummy], so a dummy's
-    value is one roll away; a 1-bit compaction then extracts the dummies,
-    which are already in slot order. All primitives are TPU-fast (see
-    ops.count's cost table — .at[].set by permutation is catastrophically
-    slow on real chips)."""
-    # key doubles as the record-first tiebreak: record at slot s -> 2s,
-    # dummy -> 2s+1; dropped records (flat == n_slots) sort past every dummy
-    keys = jnp.concatenate([
-        2 * jnp.minimum(flat, n_slots).astype(jnp.int32),
-        2 * jnp.arange(n_slots, dtype=jnp.int32) + 1])
-    is_dummy = jnp.concatenate([
-        jnp.zeros(size, jnp.uint8), jnp.ones(n_slots, jnp.uint8)])
-    padded = [jnp.concatenate([op.astype(jnp.uint32),
-                               jnp.zeros(n_slots, jnp.uint32)])
-              for op in operands]
-    out = jax.lax.sort((keys, is_dummy, *padded), num_keys=1, is_stable=False)
-    s_keys, s_dummy, s_ops = out[0], out[1], out[2:]
-
-    # a dummy preceded by its slot's record takes that record's value; a
-    # dummy that starts its segment has no record and keeps its 0 padding
-    starts = (s_keys >> 1 != jnp.roll(s_keys >> 1, 1)).at[0].set(True)
-    filled = [jnp.where(starts, op, jnp.roll(op, 1)) for op in s_ops]
-    # extract dummies (slot order is preserved by the stable compaction)
-    comp = jax.lax.sort(((1 - s_dummy), *filled), num_keys=1, is_stable=True)
-    return [c[:n_slots] for c in comp[1:]]
+def _place_slots(flat, operands, n_slots: int):
+    """Dense [n_slots] lanes from records at distinct slots `flat`; dropped
+    records hold flat == n_slots and land in a dump slot that is cut off.
+    One scatter per operand (on one H100 at 2^26 positions and 4 lanes the
+    whole routing step took 64.5 ms with it, against 619.5 ms for the
+    sort-based placement it replaced)."""
+    out = []
+    for v in operands:
+        buf = jnp.zeros(n_slots + 1, v.dtype)
+        out.append(buf.at[flat].set(v)[:-1])
+    return out
 
 
 def _route_chip(words, invalid, pos, splitters, ndev: int, cap: int, size: int,
-                impl: str = "auto", carry_pos: bool = False, weights=None):
+                carry_pos: bool = False, weights=None):
     """Build the [ndev, cap] send buffers for one chip's positions.
 
     Records are grouped by destination with one value-carrying sort; each
@@ -123,12 +104,8 @@ def _route_chip(words, invalid, pos, splitters, ndev: int, cap: int, size: int,
     carry_pos: also place each record's original position into a send
     buffer (send_pos), so the OWNER chip learns where each instance came
     from — the out-of-core mesh profile path spills (key, src, pos)
-    instance records on the owner (the TPU analog of the reference
-    carrying super-mer ordinals into its bucket files, split.c:1167-1277).
-
-    impl: 'scatter' places records with .at[].set (fast on CPU test meshes,
-    catastrophic on real TPU chips); 'merge' uses the sort-based placement;
-    'auto' picks by backend.
+    instance records on the owner (the analog of the reference carrying
+    super-mer ordinals into its bucket files, split.c:1167-1277).
     """
     from fastk_tpu.ops.count import fill_forward, sort_records
 
@@ -144,8 +121,7 @@ def _route_chip(words, invalid, pos, splitters, ndev: int, cap: int, size: int,
     s_weights = carried[len(words) + 1] if weights is not None else None
 
     # rank within destination: distance from the first record of the same
-    # dest, via the gather-free fill-forward (scatter-min is very slow on
-    # real chips)
+    # dest, via the gather-free fill-forward
     idx = jnp.arange(size, dtype=jnp.int32)
     d_starts = (d_sorted != jnp.roll(d_sorted, 1)).at[0].set(True)
     first_of = jnp.maximum(fill_forward(d_starts, idx, size), 0)
@@ -157,22 +133,12 @@ def _route_chip(words, invalid, pos, splitters, ndev: int, cap: int, size: int,
 
     flat = jnp.where(slot_ok, d_sorted.astype(jnp.int32) * cap + rank, ndev * cap)
 
-    if impl == "auto":
-        impl = "scatter" if jax.default_backend() == "cpu" else "merge"
-
     # pre-deduplicated records ride with their local counts: the placed
     # buffer then doubles as (weight, validity) — empty slots hold 0
     # exactly as with the plain ones marker
     ones = (jnp.ones(size, jnp.uint32) if weights is None else s_weights)
     vals = [*ws, *( (orig,) if carry_pos else () ), ones]
-    if impl == "merge":
-        placed = _place_by_slot_merge(flat, vals, ndev * cap, size)
-    else:
-        def scatter(v):
-            buf = jnp.zeros(ndev * cap + 1, v.dtype)
-            return buf.at[flat].set(v)[:-1]
-
-        placed = [scatter(v) for v in vals]
+    placed = _place_slots(flat, vals, ndev * cap)
     placed = [p.astype(jnp.uint32).reshape(ndev, cap) for p in placed]
     send_words = tuple(placed[: len(ws)])
     send_pos = placed[len(ws)] if carry_pos else None
@@ -182,8 +148,7 @@ def _route_chip(words, invalid, pos, splitters, ndev: int, cap: int, size: int,
 
 def _slot_counts_to_routed(flat_counts, send_valid_flat, size: int):
     """Counts per ROUTED-ORDER record from per-send-slot counts, without
-    the index-array gather the cost table forbids (~940ms at 64M vs a
-    ~2-key sort).
+    an index-array gather.
 
     Send slots are assigned to routed records in increasing order (slot =
     dest*cap + rank follows the routed sort order), so a stable compaction
@@ -233,8 +198,7 @@ def _count_received(words, valid, D_cap: int, want_rec_counts: bool,
                           weights=s_weights)
     if want_rec_counts:
         elem = res.pop("elem_counts")
-        # back to received-record order (for the inverse all_to_all);
-        # a sort by position, never a scatter (ops.count module doc)
+        # back to received-record order (for the inverse all_to_all)
         res["rec_counts"] = positions_inverse(s_vals[0], elem)
     if pos is not None:
         o = 1 if want_rec_counts else 0
@@ -250,8 +214,7 @@ def _count_received(words, valid, D_cap: int, want_rec_counts: bool,
 
 
 def sharded_count_fn(mesh: Mesh, k: int, shard_size: int, slack: float = 1.6,
-                     want_positions: bool = False, route_impl: str = "auto",
-                     want_inst: bool = False,
+                     want_positions: bool = False, want_inst: bool = False,
                      pre_dedup: Optional[bool] = None):
     """Build the jitted multi-chip counting step.
 
@@ -293,8 +256,7 @@ def sharded_count_fn(mesh: Mesh, k: int, shard_size: int, slack: float = 1.6,
         pos = jnp.arange(shard_size, dtype=jnp.uint32)
 
         if D == 1:
-            # no exchange: count the local shard directly (and skip the
-            # routing scatter, which is very slow on real TPU chips)
+            # no exchange: count the local shard directly
             rw, rv = words, (invalid == 0).astype(jnp.uint32)
             route_ovf = jnp.int32(0)
             res = _count_received(rw, rv, D_cap, want_positions, k=k,
@@ -313,8 +275,8 @@ def sharded_count_fn(mesh: Mesh, k: int, shard_size: int, slack: float = 1.6,
                 weights = lseg["seg_counts"]
             (send_words, send_valid, route_ovf, orig, flat, send_pos
              ) = _route_chip(words, invalid, pos, splitters, D, cap,
-                            shard_size, impl=route_impl,
-                            carry_pos=want_inst, weights=weights)
+                            shard_size, carry_pos=want_inst,
+                            weights=weights)
             recv_words = tuple(
                 jax.lax.all_to_all(w, axis, 0, 0, tiled=False) for w in send_words
             )
@@ -353,7 +315,7 @@ def sharded_count_fn(mesh: Mesh, k: int, shard_size: int, slack: float = 1.6,
                 rc = res["rec_counts"].reshape(D, cap)
                 back = jax.lax.all_to_all(rc, axis, 0, 0, tiled=False)
                 # undo routing: compact used-slot counts back to routed
-                # order, then one sort by original position — no gather
+                # order, then one scatter by original position
                 from fastk_tpu.ops.count import positions_inverse
 
                 got = _slot_counts_to_routed(
@@ -389,14 +351,14 @@ def sharded_count_fn(mesh: Mesh, k: int, shard_size: int, slack: float = 1.6,
 
 
 def sharded_relative_fn(mesh: Mesh, k: int, shard_size: int, table_cap: int,
-                        slack: float = 1.6, route_impl: str = "auto"):
+                        slack: float = 1.6):
     """Build the jitted multi-chip RELATIVE-profile step (the -p:<table>
     job, reference split.c:1943-2131 + cmer_merge_thread count.c:675-792,
     multi-chip).
 
     The reference table is RANGE-partitioned across chips by the same
     splitters that route queries, so each chip owns the counts for its key
-    interval: queries route to their owner over ICI (one all_to_all), the
+    interval: queries route to their owner (one all_to_all), the
     owner joins them against its chip-resident table shard (count = table
     count or 0), and the counts ride the inverse all_to_all back to query
     position order.
@@ -428,8 +390,7 @@ def sharded_relative_fn(mesh: Mesh, k: int, shard_size: int, table_cap: int,
 
         pos = jnp.arange(shard_size, dtype=jnp.uint32)
         (send_words, send_valid, route_ovf, orig, flat, _sp) = _route_chip(
-            words, invalid, pos, splitters, D, cap, shard_size,
-            impl=route_impl)
+            words, invalid, pos, splitters, D, cap, shard_size)
         recv_words = tuple(
             jax.lax.all_to_all(w, axis, 0, 0, tiled=False)
             for w in send_words)

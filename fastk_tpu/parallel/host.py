@@ -10,7 +10,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-import fastk_tpu.jaxenv  # noqa: F401  (honor JAX_PLATFORMS over plugins)
+import fastk_tpu.jaxenv  # noqa: F401  (compile cache rule)
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from fastk_tpu.ops.kmers import nwords, pad_needed
@@ -92,7 +92,7 @@ def count_files_sharded(
     """Multi-chip version of pipeline.count.count_files.
 
     Each batch's code stream shards data-parallel across the mesh, keys
-    route by range over ICI, and each chip merges ITS keyspace range
+    route by range across the mesh, and each chip merges ITS keyspace range
     across batches (owner-resident, spilled out-of-core between rounds —
     parallel.meshooc.count_files_mesh, which this delegates to). Chip
     order == key order, so the per-chip outputs concatenate into the
@@ -116,7 +116,6 @@ def relative_profiles_sharded(
     mesh: Mesh,
     batch_bases: int = 64 << 20,
     slack: float = 1.8,
-    route_impl: str = "auto",
     verbose: bool = False,
     out_base: Optional[str] = None,
     out_nparts: int = 4,
@@ -126,8 +125,8 @@ def relative_profiles_sharded(
 
     The table is range-partitioned across chips at its own word0 quantiles
     (it is sorted, so the quantiles are exact) and stays chip-resident for
-    every batch; each batch's queries route to their owner chip over
-    ICI/DCN. Multi-process runs shard the input files across hosts
+    every batch; each batch's queries route to their owner chip across the
+    mesh. Multi-process runs shard the input files across hosts
     (process-major read order) and proceed in lockstep rounds; each host
     only materializes ITS chips' table rows. With ``out_base`` profiles
     stream per batch through ProfWriter (per-host slice file-sets when
@@ -248,7 +247,7 @@ def relative_profiles_sharded(
             if fn is None or need > shard_size:
                 shard_size = max(need, 2 * shard_size)
                 fn = sharded_relative_fn(mesh, k, shard_size, table_cap,
-                                         slack=cur_slack, route_impl=route_impl)
+                                         slack=cur_slack)
             codes = (batch.codes if batch is not None
                      else np.full(16, 4, np.uint8))
             out = fn(_local_shard_rows(codes, k, mesh, shard_size), spl,
@@ -258,7 +257,7 @@ def relative_profiles_sharded(
                 # quantiles, so boundaries never move; slack == D always fits)
                 cur_slack = min(2 * cur_slack, D)
                 fn = sharded_relative_fn(mesh, k, shard_size, table_cap,
-                                         slack=cur_slack, route_impl=route_impl)
+                                         slack=cur_slack)
                 out = fn(_local_shard_rows(codes, k, mesh, shard_size), spl,
                          t_words, t_counts)
             if int(out["route_overflow"]) > 0:
@@ -325,7 +324,6 @@ def sharded_count(
     splitters: Optional[np.ndarray] = None,
     want_positions: bool = False,
     slack: float = 1.8,
-    route_impl: str = "auto",
     rebalance_state: Optional[dict] = None,
     auto_rebalance: bool = True,
     verbose: bool = False,
@@ -359,8 +357,7 @@ def sharded_count(
                               NamedSharding(mesh, P()))
 
     fn = sharded_count_fn(mesh, k, shard_size, slack=slack,
-                          want_positions=want_positions,
-                          route_impl=route_impl)
+                          want_positions=want_positions)
     codes_dev = _shard_codes(codes, k, mesh, shard_size)
     out = fn(codes_dev, put_spl(splitters))
     route_ovf = int(out["route_overflow"])
@@ -377,8 +374,7 @@ def sharded_count(
         route_ovf = int(out["route_overflow"])
     if route_ovf > 0 and D > 1 and auto_rebalance:
         fn2 = sharded_count_fn(mesh, k, shard_size, slack=min(2 * slack, D),
-                               want_positions=want_positions,
-                               route_impl=route_impl)
+                               want_positions=want_positions)
         if verbose:
             print("  still overflowing: retrying with doubled slack",
                   flush=True)

@@ -4,11 +4,12 @@ production path).
 The reference's multi-node story is: arbitrary input, bounded per-node
 memory, via keyspace-sliced jobs whose outputs splice together
 (README.md:245-353, Fastmerge.c:168-450, Fastcat). This module is the
-TPU-native equivalent as ONE program over a global device mesh:
+device equivalent as ONE program over a global device mesh:
 
 - Phase 1 (streamed lockstep rounds): every host reads its file shard in
   batches; each batch's canonical k-mers route to their keyspace OWNER
-  chip over ICI/DCN (parallel.dist.sharded_count_fn — one all_to_all),
+  chip over the device interconnect (parallel.dist.sharded_count_fn —
+  one all_to_all),
   which sorts and per-batch-deduplicates them. Each host then spills ITS
   OWN chips' (key, count) segments to local disk, pre-partitioned into
   per-chip keyspace parts (edges trained on the first batch) — nothing is
@@ -54,7 +55,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-import fastk_tpu.jaxenv  # noqa: F401  (honor JAX_PLATFORMS over plugins)
+import fastk_tpu.jaxenv  # noqa: F401  (compile cache rule)
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from fastk_tpu.formats.hist import HIST_HIGH, Histogram
@@ -234,7 +235,7 @@ def _exchange_fn(mesh: Mesh, L: int):
     """Jitted owner-addressed row exchange: global [D*D, L, 2] uint32
     (chip-major send blocks: source chip i's [D, L, 2] slab holds its rows
     for each destination chip) -> same shape where chip c's slab holds the
-    rows each source sent TO c. One lax.all_to_all over ICI/DCN — the
+    rows each source sent TO c. One lax.all_to_all across the mesh — the
     owner-addressed replacement for phase 3's former
     allgather-everything-to-everyone (the reference's per-node panel files
     are owner-addressed the same way, merge.c:761-1006)."""
@@ -435,7 +436,8 @@ def count_files_mesh(
     keep_spill = False
     stats = dict(max_round_records=0, total_spilled=0, retrains=0,
                  slack_escalations=0, batch_splits=0, pre_dedup=0,
-                 profile_rows_returned=0, profile_rows_padded=0)
+                 profile_rows_returned=0, profile_rows_padded=0,
+                 a2a_bytes=0)
     if verbose and bdone:
         print(f"  mesh resume: phase 1 re-enters after round {bdone}",
               flush=True)
@@ -588,6 +590,13 @@ def count_files_mesh(
                     while True:
                         fn, cap = get_fn(sh, cur_slack, dedup_mode)
                         out = fn(_local_shard_rows(sub, k, mesh, sh), spl)
+                        if D > 1:
+                            # every chip's [D, cap] send lanes: W key
+                            # words, the validity lane and (profiles) the
+                            # source position, uint32 each; the block a
+                            # chip sends itself is included
+                            stats["a2a_bytes"] += (
+                                D * D * cap * 4 * (W + 1 + int(profiles)))
                         if int(out["route_overflow"]) == 0 or D == 1:
                             break
                         if bidx == 0 and j == 0 and nsub == 1 \
@@ -945,6 +954,7 @@ def count_files_mesh(
                         sharding, send.reshape(n_local * D, L, 2),
                         (D * D, L, 2))
                     recv = _exchange_fn(mesh, L)(garr)
+                    stats["a2a_bytes"] += D * D * L * 2 * 4
                     got = [np.asarray(s.data).reshape(-1, 2)
                            for s in recv.addressable_shards]
                     mine = np.concatenate(got) if got else \

@@ -1,9 +1,9 @@
 """Multi-host (multi-process) execution scaffolding.
 
 The reference scales across nodes by running FastK per file block and
-merging tables afterwards (README.md:245-353 job plans). The TPU-native
-design instead runs ONE global mesh over all hosts' chips (SURVEY §2.4
-multi-node → multi-host pjit over DCN):
+merging tables afterwards (README.md:245-353 job plans). This design
+instead runs ONE global mesh over all hosts' chips (SURVEY §2.4
+multi-node → multi-host pjit):
 
 - `jax.distributed.initialize` connects the processes (init_from_env);
 - input files shard across hosts deterministically (shard_files), reads
@@ -11,8 +11,8 @@ multi-node → multi-host pjit over DCN):
 - every host feeds only its ADDRESSABLE devices of the global mesh
   (jax.make_array_from_process_local_data), and the shard_map counting
   program (parallel.dist.sharded_count_fn) runs unchanged — its
-  all_to_all keyspace routing rides ICI within a host and DCN across
-  hosts, inserted by XLA from the same code.
+  all_to_all keyspace routing crosses devices within a host and the
+  network across hosts, inserted by XLA from the same code.
 
 The production counting path lives in parallel.meshooc (owner-resident
 cross-batch merges, per-chip keyspace spill, streamed per-host output
@@ -30,7 +30,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 
 import jax
-import fastk_tpu.jaxenv  # noqa: F401  (honor JAX_PLATFORMS over plugins)
+import fastk_tpu.jaxenv  # noqa: F401  (compile cache rule)
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from fastk_tpu.ops.kmers import pad_needed

@@ -17,8 +17,8 @@ Phases (vs the reference's 4-phase disk pipeline, FastK.c:223-561):
    .profile_join) — the reference's profile inversion by LSD sorts
    (count.c:619-1004) becomes a join + one sort by position.
 
-Everything bulky stays in HBM; the host only sees scalars until final
-output encoding. (Host-side merging is also pathologically slow on
+Everything bulky stays in device memory; the host only sees scalars until
+final output encoding. (Host-side merging is also pathologically slow on
 first-touch-throttled VMs, which this design sidesteps entirely.)
 """
 
@@ -33,7 +33,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-import fastk_tpu.jaxenv  # noqa: F401  (honor JAX_PLATFORMS over plugins)
+import fastk_tpu.jaxenv  # noqa: F401  (compile cache rule)
 
 from fastk_tpu.formats.hist import HIST_HIGH, Histogram
 from fastk_tpu.formats.ktab import KmerTable
@@ -97,8 +97,7 @@ def _code_slices(codes: np.ndarray, k: int):
 
 
 def _device_codes(codes_np: np.ndarray):
-    """Host codes -> device codes via the 2-bit uint32-word ingress (some
-    transports move uint8 arrays ~1000x slower than uint32)."""
+    """Host codes -> device codes via the 2-bit uint32-word ingress."""
     from fastk_tpu.ops.pack import pack_stream_words
 
     pw, exc = pack_stream_words(codes_np)
@@ -236,8 +235,6 @@ def count_files(
     set). Profile jobs then retain only the 2-bit packed code stream between
     passes (0.25 B/base); nothing else outlives its batch.
     """
-    import os
-
     W = nwords(k)
     metas: List[Tuple[np.ndarray, np.ndarray, int]] = []  # boff, rlen, clen
     packed_store: List[List[tuple]] = []  # per batch: packed device slices
@@ -249,9 +246,13 @@ def count_files(
     # (folded key words + position) device-resident out of the counting sort
     # (ops.count.unique_batch_inst), so the profile pass joins directly with
     # no re-upload and no canonical recompute — the in-core analog of the
-    # out-of-core instance spill. Gated by an HBM budget; oversized runs
-    # fall back to re-uploading the retained 2-bit packed slices.
-    inst_budget = int(os.environ.get("FASTK_TPU_INST_HBM", 4 << 30))
+    # out-of-core instance spill. The streams may fill half the device
+    # budget (the other half holds the unique blocks and the merge and
+    # join transients); slices past it re-upload their retained 2-bit
+    # packed codes instead.
+    from fastk_tpu.jaxenv import device_memory_budget
+
+    inst_budget = device_memory_budget() // 2 if profiles else 0
     inst_store: List[List[tuple]] = []  # per batch: (off, size, s_words, s_pos)
     inst_bytes = 0
 
@@ -332,8 +333,10 @@ def count_files(
             print(f"  batch {len(metas)}: {metas[-1][1].shape[0]} reads, "
                   f"{int(metas[-1][1].sum())} bases", flush=True)
         del batch  # codes are not retained (the packed slices are 2bit/base)
+    res = None  # the last slice's full-size arrays live in `pending` only
     if pending is not None:
         _finalize(*pending)
+        pending = None
 
     nreads = sum(len(m[1]) for m in metas)
     nshort = sum(int((m[1] < k).sum()) for m in metas)
@@ -359,7 +362,12 @@ def count_files(
         m_words.append(jnp.concatenate(parts))
     m_counts = jnp.concatenate(
         blocks_counts + [jnp.zeros(cap - total, jnp.int32)])
+    # the concatenation holds every block: free them before the merge sort
+    del parts
+    blocks_words.clear()
+    blocks_counts.clear()
     merged = merge_unique_blocks(tuple(m_words), m_counts, cap, k)
+    del m_words, m_counts
 
     hist_arr = np.asarray(merged["hist"]).astype(np.int64)
     overflow = nvalid_total - int(
@@ -423,24 +431,13 @@ def count_files(
 
 def _count_single_hist(batch: ReadBatch, k: int, verbose: bool
                        ) -> CountOutput:
-    """Single-batch histogram-only job — the lean path the headline
-    benchmark measures IS the production path. The Pallas run-length walk
-    kernel (ops.histker) is kept behind FASTK_TPU_HISTKER=1: it beat the
-    XLA bincount in round 2 but lost after a libtpu update once the
-    bincount sort ran unstable (benchmarks/README round-3 notes)."""
-    import os
-
+    """Single-batch histogram-only job: the lean hist_batch program (no
+    segment compaction, no merge pass)."""
     from fastk_tpu.ops.count import hist_batch
-    from fastk_tpu.ops.histker import hist_batch_fast
 
     size = _round_size(len(batch.codes), k)
     codes = _pad_codes(batch, k, size)
-    dev = _device_codes(codes)
-    res = None
-    if os.environ.get("FASTK_TPU_HISTKER", "") == "1":
-        res = hist_batch_fast(dev, k, size)
-    if res is None:
-        res = hist_batch(dev, k, size)
+    res = hist_batch(_device_codes(codes), k, size)
     if verbose:
         print(f"  batch 1 (hist-only): {batch.nreads} reads, "
               f"{batch.totlen} bases", flush=True)

@@ -1,8 +1,9 @@
-"""Out-of-core counting: datasets whose unique k-mer set exceeds HBM.
+"""Out-of-core counting: datasets whose unique k-mer set exceeds device
+memory.
 
 The reference bounds memory by routing super-mers to NPARTS disk buckets
 sized so one bucket's k-mer array fits in -M GB (FastK.c:422-429,
-split.c:1407-1713), then counts bucket-by-bucket. The TPU version:
+split.c:1407-1713), then counts bucket-by-bucket. This version:
 
 1. The canonical keyspace is RANGE-partitioned into `parts` intervals of
    word0, with edges trained on the first batch's prefix histogram (the
@@ -20,7 +21,7 @@ split.c:1407-1713), then counts bucket-by-bucket. The TPU version:
 5. Profiles (optional): phase 1's key sort also carries positions
    (unique_batch_inst), and instances spill as (segment-index, position)
    pairs — 8 bytes each, no key bytes: an instance references its
-   slice's spilled unique record by index (the TPU analog of the
+   slice's spilled unique record by index (the analog of the
    reference carrying super-mer ordinals into the bucket files,
    split.c:1167-1277, with the ordinal pointing at the DEDUPED record).
    Phase 2 resolves every instance's count straight from the cross-batch
@@ -51,7 +52,7 @@ import numpy as np
 
 import jax.numpy as jnp
 
-import fastk_tpu.jaxenv  # noqa: F401  (honor JAX_PLATFORMS over plugins)
+import fastk_tpu.jaxenv  # noqa: F401  (compile cache rule)
 from fastk_tpu.formats.hist import HIST_HIGH, Histogram
 from fastk_tpu.formats.ktab import KmerTable, KtabWriter
 from fastk_tpu.formats.prof import ProfWriter, encode_profiles_bulk

@@ -107,9 +107,9 @@ def _ooc_plan(est_bases: int, M: float, profiles: bool) -> tuple:
     - IN-CORE eligibility: the in-core path retains per-position state for
       the whole run — unique blocks + final merge transients (~56
       B/position worst case; ~80 with the profile instance join) — so it
-      requires est * mode_bytes to fit BOTH the device budget
-      (FASTK_TPU_HBM_GB, default 13 of a v5e's 16) and the user's -M (the
-      reference's SORT_MEMORY semantics, FastK.c:422-429).
+      requires est * mode_bytes to fit BOTH the device budget (measured:
+      jaxenv.device_memory_budget) and the user's -M (the reference's
+      SORT_MEMORY semantics, FastK.c:422-429).
 
     - Otherwise out-of-core: a part's merge costs ~96 B/record in
       sort/segment transients (measured: a 47M-record part merge drives
@@ -119,10 +119,11 @@ def _ooc_plan(est_bases: int, M: float, profiles: bool) -> tuple:
       input grows, which is the reference's defining -M property
       (README.md:44-46).
     """
+    from fastk_tpu.jaxenv import device_memory_budget
+
     part_cap = min(1 << 26, max(1 << 22, int(M * 1e9) // 96))
-    hbm = float(os.environ.get("FASTK_TPU_HBM_GB", "13")) * 1e9
     mode_bytes = 80 if profiles else 56
-    if est_bases * mode_bytes <= min(hbm, M * 1e9):
+    if est_bases * mode_bytes <= min(device_memory_budget(), M * 1e9):
         return 1, part_cap
     return max(2, math.ceil(est_bases / part_cap)), part_cap
 
@@ -290,16 +291,22 @@ def _run(cfg, out_base):
             if ratio is not None:
                 # measured-footprint envelopes: hist/table retain the
                 # unique blocks + final-merge transients (~56B per
-                # UNIQUE); profiles additionally keep the per-batch
-                # instance stream device-resident and pay the join
-                # transients (~28B/position + ~80B/unique, conservative
-                # — the r5 300MB -t -p attempt measured ~12GB peak)
+                # UNIQUE); profiles additionally keep every position's
+                # sorted instance (W key words + position, uint32 each)
+                # device-resident and pay the merge and per-slice join
+                # transients (~80B/unique). On one H100 a 1 Gbp 50X
+                # HiFi -t3 -p run peaked at 40.0 GB where this says
+                # 47.9 GB
                 if cfg["p"]:
-                    in_bytes = est_bases * (28 + ratio * 80)
+                    from fastk_tpu.ops.kmers import nwords
+
+                    inst = 4 * nwords(cfg["k"]) + 4
+                    in_bytes = est_bases * (inst + ratio * 80)
                 else:
                     in_bytes = est_bases * ratio * 56
-                hbm = float(os.environ.get("FASTK_TPU_HBM_GB", "13")) * 1e9
-                if in_bytes <= min(hbm, cfg["M"] * 1e9):
+                from fastk_tpu.jaxenv import device_memory_budget
+
+                if in_bytes <= min(device_memory_budget(), cfg["M"] * 1e9):
                     if cfg["v"]:
                         print(f"  measured dedup ratio {ratio:.3f}: "
                               "in-core (footprint "
@@ -349,16 +356,18 @@ def _run(cfg, out_base):
 
             if measured_incore:
                 # the measured-footprint promotion can still lose to a
-                # pathological tail (dedup collapses mid-run): an HBM
-                # exhaustion demotes back to the out-of-core plan
+                # pathological tail (dedup collapses mid-run): a device
+                # memory exhaustion demotes back to the out-of-core plan
                 try:
                     out = _in_core()
                 except Exception as e:
-                    if "RESOURCE_EXHAUSTED" not in str(e):
+                    from fastk_tpu.jaxenv import is_device_oom
+
+                    if not is_device_oom(e):
                         raise
                     # the failed attempt's traceback frames pin its
                     # device buffers; break the cycle and collect so the
-                    # out-of-core retry starts with free HBM
+                    # out-of-core retry starts with free device memory
                     import gc
 
                     e.__traceback__ = None

@@ -59,9 +59,6 @@ import numpy as np
 os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") +
                            " --xla_force_host_platform_device_count=2")
 import jax
-# config.update, not the env var: out-of-tree PJRT plugins can override
-# JAX_PLATFORMS at registration (see fastk_tpu/jaxenv.py), and with the
-# plugin's backend unreachable the worker would hang in its init forever.
 jax.config.update("jax_platforms", "cpu")
 jax.distributed.initialize(coordinator_address=sys.argv[1],
                            num_processes=2, process_id=int(sys.argv[2]))

@@ -1,5 +1,5 @@
 """Brute-force reference k-mer counter used to validate both the file-format
-codecs (against oracle-produced goldens) and the TPU pipeline.
+codecs (against oracle-produced goldens) and the device pipeline.
 
 Intentionally simple and independent of fastk_tpu's compute path.
 """
